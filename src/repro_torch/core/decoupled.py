@@ -1,0 +1,202 @@
+"""Decoupled (per-port) policy evaluation — the fast sweep path.
+
+Given per-link busy intervals recorded from one coupled baseline run
+(policy='none'), evaluate any number of PDT policies WITHOUT re-simulating
+the network: each link's EEE state machine depends only on its own arrival
+process once latency feedback is ignored (a first-order approximation).
+
+Pipeline (CUDA-kernel backed on the card):
+  events -> per-port (gap, duration) streams   [host sort, then device]
+         -> hist_update kernel  -> inactivity histograms
+         -> tpdt_select kernel  -> per-port PerfBound t_PDT snapshot
+         -> port_energy kernel  -> energy / hits / misses per port
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import perfbound as pb
+from repro_torch.core.eee import Policy, PowerModel
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+
+_F32 = torch.float32
+
+
+def _sorted_events(events):
+    lp = np.concatenate([np.asarray(e[0]) for e in events]) \
+        if events else np.zeros(0, np.int64)
+    ts = np.concatenate([np.asarray(e[1], np.float64) for e in events]) \
+        if events else np.zeros(0, np.float64)
+    te = np.concatenate([np.asarray(e[2], np.float64) for e in events]) \
+        if events else np.zeros(0, np.float64)
+    order = np.lexsort((ts, lp))
+    return lp[order], ts[order], te[order]
+
+
+def _events_to_streams_ref(events, n_links, t_end):
+    """Scalar reference of the merge (one loop over the sorted events) —
+    the semantics oracle of ``events_to_streams``.  Host numpy out."""
+    lp, ts, te = _sorted_events(events)
+    counts = np.bincount(lp, minlength=n_links)
+    E = max(int(counts.max(initial=1)), 1)
+    P = n_links
+    gaps = np.zeros((E, P), np.float32)
+    durs = np.zeros((E, P), np.float32)
+
+    pos = np.zeros(P, np.int64)
+    last = np.zeros(P, np.float64)
+    # merge overlapping intervals per link (full-duplex overlap)
+    for l, s, e in zip(lp, ts, te):
+        if s < last[l]:  # overlaps previous busy window: extend it
+            if e > last[l]:
+                durs[pos[l] - 1, l] += e - last[l]
+                last[l] = e
+            continue
+        gaps[pos[l], l] = s - last[l]
+        durs[pos[l], l] = e - s
+        pos[l] += 1
+        last[l] = e
+    tail = (t_end - last).astype(np.float32)
+    return gaps, durs, tail
+
+
+def _streams_host(events, n_links, t_end):
+    """Vectorized merge (lexsort + segmented prefix maxima), bit-identical
+    to ``_events_to_streams_ref``: the per-link ``last`` watermark is a
+    running max of interval ends, so run starts, per-run rows, and the
+    f64->f32 rounding chain of repeated run extensions all fall out of
+    prefix ops."""
+    lp, ts, te = _sorted_events(events)
+    counts = np.bincount(lp, minlength=n_links)
+    E = max(int(counts.max(initial=1)), 1)
+    P = n_links
+    gaps = np.zeros((E, P), np.float32)
+    durs = np.zeros((E, P), np.float32)
+    last_fin = np.zeros(P, np.float64)
+    n = lp.size
+    if n == 0:
+        return gaps, durs, (t_end - last_fin).astype(np.float32)
+
+    idx = np.arange(n)
+    grp_start = np.empty(n, bool)
+    grp_start[0] = True
+    grp_start[1:] = lp[1:] != lp[:-1]
+    start = np.maximum.accumulate(np.where(grp_start, idx, 0))
+
+    # last_before[i] = the scalar loop's ``last[l]`` seen by event i: the
+    # running max of earlier interval ends in the link group, clamped >=0.
+    # Exclusive shift within the group, then a segmented inclusive cummax
+    # by logarithmic doubling.
+    prev = np.empty(n, np.float64)
+    prev[0] = 0.0
+    prev[1:] = te[:-1]
+    prev[grp_start] = 0.0
+    last_before = np.maximum(prev, 0.0)
+    d = 1
+    while d < n:
+        ok = idx >= start + d
+        cand = np.where(ok, np.concatenate(
+            [np.full(d, -np.inf), last_before[:-d]]), -np.inf)
+        last_before = np.maximum(last_before, cand)
+        d *= 2
+
+    # run segmentation: every group's first event opens a run (s >= 0)
+    is_new = ts >= last_before
+    run = np.cumsum(is_new) - 1          # global run id
+    row = run - run[start]               # per-link row = scalar pos[l]
+
+    gaps[row[is_new], lp[is_new]] = ts[is_new] - last_before[is_new]
+    durs[row[is_new], lp[is_new]] = te[is_new] - ts[is_new]
+
+    # overlap extensions: apply in lockstep rank rounds so repeated
+    # extensions of one run replay the exact f32 += rounding sequence
+    ext = np.flatnonzero(~is_new & (te > last_before))
+    if ext.size:
+        er = run[ext]
+        first = np.empty(ext.size, bool)
+        first[0] = True
+        first[1:] = er[1:] != er[:-1]
+        rank = np.arange(ext.size) - np.maximum.accumulate(
+            np.where(first, np.arange(ext.size), 0))
+        for r in range(int(rank.max()) + 1):
+            sel = ext[rank == r]
+            durs[row[sel], lp[sel]] += te[sel] - last_before[sel]
+
+    np.maximum.at(last_fin, lp, te)
+    return gaps, durs, (t_end - last_fin).astype(np.float32)
+
+
+def events_to_streams(events, n_links, t_end, device=None):
+    """events: list of (link, t_start, t_end) host arrays from
+    ``simulate_trace_reference(..., collect_events=True)``.
+
+    Returns gaps (E,P) f32, durs (E,P) f32, tail (P,) f32 on ``device`` —
+    per-link idle gap before each busy interval (merged across both
+    directions) and the closing idle tail up to ``t_end``.  The merge runs
+    on the host (bit-identical to ``_events_to_streams_ref``); the streams
+    then move to the device once.
+    """
+    dev = resolve_device(device)
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in _streams_host(events, n_links, t_end))
+
+
+def evaluate_fixed(gaps, durs, tail, t_pdt, policy: Policy,
+                   pm: PowerModel, use_ref=False, device=None):
+    """Evaluate a per-port (or scalar) t_PDT assignment.  Returns dict.
+
+    Dual-capable policies evaluate the two-row ladder: gaps outlasting the
+    demotion timer land in the deep row's time/energy accounts.
+    """
+    dev = resolve_device(device)
+    gaps, durs, tail = (torch.as_tensor(a, dtype=_F32, device=dev)
+                        for a in (gaps, durs, tail))
+    P = gaps.shape[1]
+    tpdt = torch.as_tensor(t_pdt, dtype=_F32, device=dev) \
+        .broadcast_to((P,)).contiguous()
+    st, st2 = policy.state, policy.deep
+    t_dst = policy.t_dst if policy.dual_capable else float("inf")
+    hold = policy.hold_delay if policy.kind == "precoalesce" else 0.0
+    out = ops.port_energy_op(gaps, durs, tpdt, tail, t_w=st.t_w, t_s=st.t_s,
+                             t_w2=st2.t_w, t_s2=st2.t_s, t_dst=t_dst,
+                             hold=hold, use_ref=use_ref)
+    link_energy = 2 * pm.port_power * (
+        out["time_wake"].sum() + st.power_frac * out["time_sleep"].sum()
+        + st2.power_frac * out["time_sleep2"].sum())
+    return dict(out, link_energy=float(link_energy),
+                wake_time=float(out["time_wake"].sum()),
+                sleep_time=float(out["time_sleep"].sum()),
+                sleep2_time=float(out["time_sleep2"].sum()))
+
+
+def perfbound_snapshot_tpdt(gaps, t_elapsed, hop_mean, policy: Policy,
+                            use_ref=False, device=None):
+    """One-shot PerfBound prediction from the full gap history (the
+    'periodic batched recalculation' mode of §3.2, kernel-accelerated)."""
+    dev = resolve_device(device)
+    gaps = torch.as_tensor(gaps, dtype=_F32, device=dev)
+    counts, sums = ops.hist_update_op(
+        gaps, n_bins=policy.hist_bins, bin_width=policy.hist_bin_width,
+        log_bins=policy.hist_log_bins, log_min=policy.hist_log_min,
+        log_max=policy.hist_log_max, use_ref=use_ref)
+    l = policy.bound / max(hop_mean, 1.0)
+    # host constants in float64, then cast, as the reference does
+    N = torch.full(counts.shape[:1], l * t_elapsed / policy.state.t_w,
+                   dtype=_F32, device=dev)
+    centers = pb.bin_centers(policy, device=dev).to(_F32)
+    total = counts.sum(-1)
+    return ops.tpdt_select_op(counts, sums, N, total, centers,
+                              max_tpdt=policy.max_tpdt,
+                              tpdt_init=policy.tpdt_init, use_ref=use_ref)
+
+
+def sweep_policies(events, n_links, t_end, tpdt_values, policy: Policy,
+                   pm: PowerModel | None = None, device=None):
+    """Fast sweep of fixed t_PDT values over one recorded baseline run."""
+    dev = resolve_device(device)
+    pm = pm or PowerModel()
+    gaps, durs, tail = events_to_streams(events, n_links, t_end, device=dev)
+    return {t: evaluate_fixed(gaps, durs, tail, t, policy, pm, device=dev)
+            for t in tpdt_values}
