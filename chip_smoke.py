@@ -5,16 +5,27 @@
 
 Phases (each prints its own lines; any failure exits non-zero):
   1. device   the card's name and power limit (nvidia-smi)
-  2. build    the three CUDA kernels from src/repro_torch/kernels/csrc
+  2. build    the four CUDA kernels from src/repro_torch/kernels/csrc
   3. kernels  each kernel against its plain PyTorch version on the card at
-              the main path's shapes (E=2048, P=10,400, B=200), with times
+              its main path's shapes (E=2048, P=10,400, B=200; flash
+              attention at the serve phase's prefill, B=4, S=2048, 12/2
+              heads, dh=128, bf16, causal), with times; flash attention
+              also over small cases (ragged, non-causal, window, MQA, MHA,
+              other head dims, float32)
   4. main     the paper's Megafly (4,160 nodes) and AlexNet on 64 nodes:
               coupled baseline replay -> event streams -> decoupled sweeps
               and the PerfBound snapshot on the kernels, plus one coupled
-              fixed-PDT replay for the decoupled energy error; the kernels'
-              launch counts over this phase must all be > 0
-  5. check    the same path on a small input, on the card against the
-              host's plain versions
+              fixed-PDT replay for the decoupled energy error; the
+              decoupled kernels' launch counts over this phase must all be
+              > 0
+  5. serve    Qwen2-1.5B at full width and depth, seeded bf16 weights,
+              attn_impl="pallas": 4 requests x 2,048-token prompts, 32
+              greedy steps in a 2,176-slot cache; prefill and decode
+              times, tokens/s, peak memory; flash_attn_fwd launches must be
+              28 per prefill; the prefill's last logits held against the
+              same prefill on the kernel's plain version
+  6. check    the simulator path and a small Qwen2 on a small input, on
+              the card against the host's plain versions
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -33,9 +44,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_PER_S = 67e12          # H100 SXM float32 rate outside the tensor cores
+BF16_TC_OPS_PER_S = 989.4e12   # H100 SXM dense bf16 tensor-core rate
 TPDT_GRID = [0.0, 1e-7, 1e-6, 1e-5, 1e-4, 1e-3, 1e-2, 1e-1, 1.0]
 E_K, P_K, B_K = 2048, 10_400, 200   # kernel-phase shapes (main path: E<=1,926)
 ALEXNET_ITERS = 10                  # the paper's AlexNet depth, uncut
+DECOUPLED_KERNELS = ("port_energy", "hist_update", "tpdt_select")
+SERVE_B, SERVE_S, SERVE_STEPS, SERVE_CACHE = 4, 2048, 32, 2176
+# (B, Sq, Skv, H, Hkv, dh, causal, window) of the small flash cases
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 32, True, None),
+    (1, 96, 96, 4, 4, 16, True, None),       # ragged, MHA
+    (2, 64, 64, 8, 2, 32, False, None),      # non-causal
+    (1, 128, 128, 4, 2, 32, True, 48),       # sliding window
+    (1, 64, 64, 8, 1, 16, True, None),       # MQA
+    (2, 77, 77, 4, 2, 64, True, None),
+    (1, 150, 150, 4, 2, 112, True, 40),
+    (1, 70, 70, 2, 1, 256, True, None),
+    (1, 300, 333, 12, 2, 128, True, None),
+]
 
 
 class SmokeFailure(Exception):
@@ -69,9 +95,11 @@ def cuda_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, ops_per_s=F32_OPS_PER_S):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over ``ops_per_s``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -239,6 +267,7 @@ def phase_kernels(rng):
         bound=bound(P * B * 4 + P * 32 + (3 * P + B) * 4, 2 * P * B),
         source="src/repro_torch/kernels/csrc/tpdt_select.cu",
         replaces="src/repro/kernels/tpdt_select.py:68")
+    rows["flash_attn_fwd"] = flash_kernel_row(rng)
     for name, r in rows.items():
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         log(f"kernels: {name} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
@@ -246,6 +275,68 @@ def phase_kernels(rng):
             f"library_ms={lib}")
     ops.reset_launch_counts()
     return rows
+
+
+def flash_kernel_row(rng):
+    """Flash-attention forward against its plain version: the small cases
+    (float32 at 2e-5, bf16 at 2e-2, the reference's kernel-test
+    tolerances), then the serve phase's prefill shape in bf16, timed
+    beside the plain version and SDPA (a yardstick the port never
+    calls)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import flash_attention_fwd_cuda
+
+    dev = torch.device("cuda")
+
+    def qkv(B, Sq, Skv, H, Hkv, dh, dtype):
+        return tuple(torch.randn(s, generator=gen, device=dev).to(dtype)
+                     for s in ((B, Sq, H, dh), (B, Skv, Hkv, dh),
+                               (B, Skv, Hkv, dh)))
+
+    def compare(label, q, k, v, tol, **kw):
+        o, lse = flash_attention_fwd_cuda(q, k, v, **kw)
+        wo, wlse = ref.flash_attention_fwd_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e = max(max_err(o.float(), wo.float()), max_err(lse, wlse))
+        require(o.dtype == q.dtype and close(o.float(), wo.float(), tol, tol)
+                and close(lse, wlse, tol, tol),
+                f"flash_attn_fwd {label} disagrees: max |err| {e:.3g}")
+        return e
+
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 30)))
+    err = 0.0
+    for case in FLASH_CASES:
+        B, Sq, Skv, H, Hkv, dh, causal, window = case
+        for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+            e = compare(f"{case} {dtype}", *qkv(B, Sq, Skv, H, Hkv, dh,
+                                                dtype),
+                        tol, causal=causal, window=window)
+            err = max(err, e)
+    log(f"kernels: flash_attn_fwd == plain in {2 * len(FLASH_CASES)} small "
+        f"cases (f32 rtol/atol 2e-5, bf16 2e-2), max |err| {err:.3g}")
+
+    B, S, H, Hkv, dh = SERVE_B, SERVE_S, 12, 2, 128
+    q, k, v = qkv(B, S, S, H, Hkv, dh, torch.bfloat16)
+    e = compare("prefill shape", q, k, v, 2e-2, causal=True)
+    log(f"kernels: flash_attn_fwd[B={B} S={S} H={H}/{Hkv} dh={dh} bf16 "
+        f"causal] == plain (rtol/atol 2e-2), max |err| {e:.3g}")
+    ms = cuda_ms(lambda: flash_attention_fwd_cuda(q, k, v, causal=True), 20)
+    plain_ms = cuda_ms(lambda: ref.flash_attention_fwd_ref(q, k, v,
+                                                           causal=True), 5)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 20)
+    # causal work: q.k and p.v over S(S+1)/2 pairs per head, 2 ops per
+    # multiply-add; bytes: q, k, v and o once, lse once
+    nops = 4 * B * H * dh * S * (S + 1) // 2
+    nbytes = 2 * (2 * B * S * H * dh + 2 * B * S * Hkv * dh) + 4 * B * H * S
+    return dict(max_abs_err=max(err, e), ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms,
+                bound=bound(nbytes, nops, BF16_TC_OPS_PER_S),
+                source="src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
+                replaces="src/repro/kernels/flash_attn.py:127")
 
 
 def _hop_mean(trace, topo):
@@ -369,7 +460,8 @@ def phase_main(iters):
         f"decoupled t=1e-05 energy_err={100 * energy_err:.2f}% "
         f"wake_err={wake_err:.0f} (coupled {coupled.link_energy:.6g} J, "
         f"decoupled {dec['link_energy']:.6g} J)")
-    launches = ops.launch_counts()
+    launches = {k: n for k, n in ops.launch_counts().items()
+                if k in DECOUPLED_KERNELS}
     log("kernels: " + json.dumps(launches))
     for name, n in launches.items():
         require(n > 0, f"the main path launched {name} no time")
@@ -411,6 +503,159 @@ def phase_main(iters):
             f"({100 * (1 - e / res0.link_energy):+.2f}% saved)")
     require(energy_err < 0.10, "decoupled energy far from the coupled replay")
     return launches, stages
+
+
+def _tree_to(tree, dev):
+    return {k: _tree_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+def device_profile(fn, label, top=6):
+    """One call of ``fn`` under torch.profiler: wall time, summed device
+    time and the kernels with the most device time, logged."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + getattr(
+                e, "device_time_total", 0.0)
+    busy_us = sum(by_name.values())
+    require(busy_us > 0, f"profile of {label}: no device time")
+    log(f"profile: {label} (under the profiler): wall {1e3 * wall:.2f} ms, "
+        f"device busy {busy_us / 1e3:.2f} ms = "
+        f"{100 * busy_us / 1e6 / wall:.1f}% of wall")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"profile:   {100 * us / busy_us:5.1f}%  {us / 1e3:8.3f} ms  "
+            f"{name[:90]}")
+    return busy_us / 1e6 / wall
+
+
+def phase_serve(seed):
+    """Qwen2-1.5B serving at full width and depth on the flash kernel."""
+    import dataclasses
+    import torch
+    from repro_torch import convert
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    from repro_torch.serving import serve
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), attn_impl="pallas")
+    B, S, steps = SERVE_B, SERVE_S, SERVE_STEPS
+    t0 = time.perf_counter()
+    params = convert.serving_params(M.init_params(cfg, seed, device=dev))
+    torch.cuda.synchronize()
+    n_params = M.count_params(cfg)
+    log(f"serve: {cfg.name} {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads x {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params:,} parameters, "
+        f"seeded bf16 weights on the card "
+        f"({time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    serve.generate(params, cfg, prompt[:, :128], 2)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts from 0 ----------------------------------
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks = serve.generate(params, cfg, prompt, steps, cache_len=SERVE_CACHE)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    n_prefill = 1
+    prefill = serve.make_prefill_step(cfg)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        first, cache = prefill(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        n_prefill += 1
+    prefill_ms = 1e3 * statistics.median(times)
+    cache = serve.grow_cache(cache, SERVE_CACHE)
+    step = serve.make_serve_step(cfg)
+    tok, outs = first[:, None], [first[:, None]]
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        tok, cache = step(params, cache, tok)
+        outs.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = 1e3 * (time.perf_counter() - t0) / (steps - 1)
+    peak = torch.cuda.max_memory_allocated()
+    del cache
+    launches = ops.launch_counts()["flash_attn_fwd"]
+    log(f"serve: {B} requests x {S} prompt tokens, {steps} greedy steps, "
+        f"cache {SERVE_CACHE}: generate {gen_s:.3f} s = "
+        f"{B * steps / gen_s:.1f} generated tokens/s; prefill "
+        f"{prefill_ms:.2f} ms (median of 3, {B * S / prefill_ms * 1e3:.0f} "
+        f"prompt tokens/s); decode {decode_ms:.3f} ms/step "
+        f"({B / decode_ms * 1e3:.1f} tokens/s); peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"kernels: flash_attn_fwd launched {launches} times in "
+        f"{n_prefill} prefills")
+    require(launches == cfg.num_layers * n_prefill,
+            f"flash_attn_fwd launched {launches} times, want "
+            f"{cfg.num_layers} x {n_prefill} prefills")
+    busy = {"prefill": device_profile(
+        lambda: prefill(params, {"tokens": prompt}), "one prefill")}
+    cache = serve.grow_cache(prefill(params, {"tokens": prompt})[1],
+                             SERVE_CACHE)
+    busy["decode"] = device_profile(
+        lambda: step(params, cache, first[:, None]), "one decode step")
+    del cache
+    again = torch.cat(outs, 1)
+    log(f"serve: prefill + decode steps reproduce generate's tokens: "
+        f"{int((again == toks).sum())} of {toks.numel()}")
+
+    # ---- outputs are well formed, and held against the plain version ----
+    require(toks.shape == (B, steps) and toks.dtype == torch.int32,
+            f"generate gave {tuple(toks.shape)} {toks.dtype}")
+    require(int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size,
+            "generated token ids out of the vocabulary")
+    batch = {"tokens": prompt}
+    got = M.forward(params, batch, cfg, mode="prefill")["logits"][:, -1]
+    want = M.forward(params, batch, cfg, mode="prefill",
+                     use_ref=True)["logits"][:, -1]
+    got, want = got.float(), want.float()
+    require(bool(torch.isfinite(got).all()), "non-finite prefill logits")
+    # Both prefills compute attention in float32 from the same bf16 inputs
+    # and differ only in the order of float32 sums, so an attention output
+    # may round to the other bf16 neighbour (one ulp, 2^-7 relative, a
+    # 2^-8 error either way).  Such flips are independent from layer to
+    # layer; over L layers they add up to ~sqrt(L) * 2^-8 of the logits'
+    # scale.  The tolerance is twice that, times the largest |logit|.
+    tol = 2 * math.sqrt(cfg.num_layers) * 2.0 ** -8 * float(want.abs().max())
+    err = float((got - want).abs().max())
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > tol
+    agree = got.argmax(-1) == want.argmax(-1)
+    log(f"serve: last-position logits, kernel vs plain prefill: max |err| "
+        f"{err:.4g}, tolerance {tol:.4g} (2 sqrt(L) 2^-8 max|logit|); "
+        f"first tokens agree {int(agree.sum())}/{B}, top-2 margins "
+        f"{[round(float(m), 4) for m in margin]}")
+    require(err <= tol, f"kernel prefill logits off the plain version by "
+            f"{err:.4g} > {tol:.4g}")
+    require(bool(agree[decided].all()),
+            "a first token differs where the top-2 margin exceeds the "
+            "tolerance")
+    require(bool((toks[:, 0] == got.argmax(-1).to(torch.int32)).all()),
+            "generate's first tokens are not the prefill's argmax")
+    return launches, dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                          tokens_per_s=B * steps / gen_s, peak_bytes=peak,
+                          logits_err=err, logits_tol=tol, busy=busy)
 
 
 def phase_check():
@@ -460,6 +705,32 @@ def phase_check():
     log("check: small input (80-node Megafly, AlexNet 8 nodes) on the card "
         "== host plain versions (SimResult rtol 1e-9, decoupled rtol 1e-5)")
 
+    # a small Qwen2 (float32): the card's kernel path against the host's
+    # plain versions on the same weights
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+    from repro_torch.serving import serve
+    cfg = dataclasses.replace(get_config("qwen2-1.5b").smoke(),
+                              attn_impl="pallas")
+    p_cpu = M.init_params(cfg, 0, device="cpu")
+    p_gpu = _tree_to(p_cpu, "cuda")
+    prompt = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 40))
+        .astype(np.int32))
+    a = M.forward(p_gpu, {"tokens": prompt.cuda()}, cfg)["logits"].cpu()
+    b = M.forward(p_cpu, {"tokens": prompt}, cfg)["logits"]
+    require(torch.allclose(a, b, rtol=1e-4, atol=1e-4),
+            f"small Qwen2 logits: card vs host max |err| {max_err(a, b):.3g}")
+    ta = serve.generate(p_gpu, cfg, prompt.cuda(), 6, cache_len=64).cpu()
+    tb = serve.generate(p_cpu, cfg, prompt, 6, cache_len=64)
+    require(torch.equal(ta, tb), f"small Qwen2 tokens: card {ta.tolist()} "
+            f"vs host {tb.tolist()}")
+    log(f"check: small Qwen2 ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, f32) on the card == host plain versions (logits "
+        f"rtol/atol 1e-4, max |err| {max_err(a, b):.3g}; generated tokens "
+        f"==)")
+
 
 def main():
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -482,6 +753,7 @@ def main():
         phase_build()
         rows = phase_kernels(np.random.default_rng(0))
         launches, stages = phase_main(ALEXNET_ITERS)
+        launches["flash_attn_fwd"], served = phase_serve(0)
         phase_check()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
@@ -495,7 +767,9 @@ def main():
     busy = stages["replay_busy_share"]
     busy = "not measured" if busy is None else f"{100 * busy:.1f}%"
     log(f"total: {time.perf_counter() - t_start:.1f} s; coupled replay "
-        f"device-busy share {busy}; {smi}")
+        f"device-busy share {busy}; serve prefill "
+        f"{served['prefill_ms']:.2f} ms, decode {served['decode_ms']:.3f} "
+        f"ms/step; {smi}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

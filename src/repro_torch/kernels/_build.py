@@ -24,7 +24,7 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("port_energy", "hist_update", "tpdt_select")
+KERNELS = ("port_energy", "hist_update", "tpdt_select", "flash_attn_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -103,15 +103,15 @@ def check(name: str, err: int):
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 
 
-def expect(what: str, t, shape, device):
-    """Raise unless ``t`` is a contiguous float32 tensor of ``shape`` on
+def expect(what: str, t, shape, device, dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device``: the kernels take nothing else."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what}: expected a tensor, got {type(t).__name__}")
-    if t.device != device or t.dtype != torch.float32 \
+    if t.device != device or t.dtype != dtype \
             or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(
-            f"{what}: expected a contiguous float32 tensor of shape "
+            f"{what}: expected a contiguous {str(dtype)[6:]} tensor of shape "
             f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} "
             f"on {t.device} (contiguous={t.is_contiguous()})")
 

@@ -1,8 +1,9 @@
-"""Dispatching wrappers for the decoupled-path kernels.
+"""Dispatching wrappers for the port's kernels.
 
-The contract of the reference's ``kernels/ops.py``: operands are cast to
-float32; a tensor on a CUDA device launches the hand-written kernel (which
-raises on anything it cannot take); a tensor on the CPU, or
+The contract of the reference's ``kernels/ops.py``: the decoupled-path
+operands are cast to float32, attention takes float32 or bfloat16; a
+tensor on a CUDA device launches the hand-written kernel (which raises
+on anything it cannot take); a tensor on the CPU, or
 ``use_ref=True`` on either device, takes the plain PyTorch version.  There
 is no fallback from a failed kernel to the plain version.
 """
@@ -11,12 +12,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attn import (check_forward_only,
+                                            flash_attention_fwd_cuda)
 from repro_torch.kernels.hist_update import hist_update_cuda
 from repro_torch.kernels.port_energy import port_energy_cuda
 from repro_torch.kernels.tpdt_select import tpdt_select_cuda
 
 KERNELS = {"port_energy": port_energy_cuda, "hist_update": hist_update_cuda,
-           "tpdt_select": tpdt_select_cuda}
+           "tpdt_select": tpdt_select_cuda,
+           "flash_attn_fwd": flash_attention_fwd_cuda}
 
 
 def launch_counts() -> dict:
@@ -65,3 +69,26 @@ def port_energy_op(gaps, durs, tpdt, tail, t_dst=None, hold=None, *, t_w,
     if _plain(gaps, use_ref):
         return ref.port_energy_ref(*args, **kw)
     return port_energy_cuda(*args, **kw)
+
+
+def flash_attention_fwd_op(q, k, v, *, causal=True, window=None,
+                           block_q=512, block_kv=1024, use_ref=False):
+    """GQA flash-attention forward: ``(o, lse)``, ``o`` (B, Sq, H, dh) in
+    q's dtype, ``lse`` (B*Hkv, H/Hkv, Sq) float32 (the valid rows of the
+    TPU kernel's lse).  ``block_q``/``block_kv`` are the TPU kernel's tile
+    sizes, taken for signature parity: the CUDA kernel picks its own tiles.
+    Forward-only: raises if an input requires grad."""
+    check_forward_only(q, k, v)
+    kw = dict(causal=causal, window=window)
+    if _plain(q, use_ref):
+        return ref.flash_attention_fwd_ref(q, k, v, **kw)
+    return flash_attention_fwd_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), **kw)
+
+
+def flash_attention_op(q, k, v, *, causal=True, window=None, block_q=512,
+                       block_kv=1024, use_ref=False):
+    """The attention output of ``flash_attention_fwd_op``."""
+    return flash_attention_fwd_op(q, k, v, causal=causal, window=window,
+                                  block_q=block_q, block_kv=block_kv,
+                                  use_ref=use_ref)[0]

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three decoupled-path kernels.
+"""Plain PyTorch versions of the port's kernels.
 
 Shape for shape and operation for operation the reference's oracles
 (``repro/kernels/ref.py``), apart from the log-bin index, which follows the
@@ -151,3 +151,51 @@ def port_energy_ref(gaps, durs, tpdt, tail, *, t_w, t_s,
     sleep2 = sleep2 + torch.where(tail_deep, tail - tpdt - tds - t_s2, 0.0)
     return {"time_wake": wake, "time_sleep": sleep, "time_sleep2": sleep2,
             "n_wake": nw, "hits": hit, "misses": miss, "n_deep": nd}
+
+
+def _flash_scores(q, k, causal, window):
+    """float32 scaled scores (B, Hkv, G, Sq, Skv) with masked positions set
+    to the TPU kernel's NEG, and the mask."""
+    B, Sq, H, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qg = q.to(_F32).reshape(B, Sq, Hkv, H // Hkv, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(_F32)) * (
+        1.0 / math.sqrt(dh))
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Skv, device=q.device)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= q_pos - k_pos < window
+    return torch.where(ok, s, -0.7 * torch.finfo(_F32).max), ok
+
+
+def flash_attention_ref(q, k, v, *, causal=True, window=None):
+    """The reference's oracle of the flash-attention kernel: direct
+    softmax attention with GQA head grouping, causal and sliding-window
+    masks, float32 math.  q: (B, Sq, H, dh); k/v: (B, Skv, Hkv, dh)."""
+    B, Sq, H, dh = q.shape
+    s, _ = _flash_scores(q, k, causal, window)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(_F32))
+    return o.reshape(B, Sq, H, dh).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal=True, window=None):
+    """Plain version of the flash-attention forward kernel, in its
+    semantics: float32 scores scaled by 1/sqrt(dh) rounded to float32;
+    masked scores NEG and their p zero; ``l = max(sum p, 1e-30)``;
+    ``o = (p @ v) / l`` in q's dtype and ``lse = m + log(l)``, (B*Hkv, G,
+    Sq) float32.  A row with every key masked gives o = 0 (the oracle's
+    softmax would average)."""
+    B, Sq, H, dh = q.shape
+    Hkv = k.shape[2]
+    s, ok = _flash_scores(q, k, causal, window)
+    m = s.amax(dim=-1)
+    p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+    l = torch.clamp_min(p.sum(dim=-1), 1e-30)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p, v.to(_F32)) / l[..., None]
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, dh).to(q.dtype)
+    lse = (m + torch.log(l)).reshape(B * Hkv, H // Hkv, Sq)
+    return o, lse

@@ -12,6 +12,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.flash_attn import flash_attention_fwd_cuda  # noqa: E402,E501
 from repro_torch.kernels.port_energy import port_energy_cuda  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -106,3 +107,53 @@ def test_kernels_refuse_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="MAX_E"):
         ops.hist_update_op(torch.zeros((9000, 2), device=dev), n_bins=8,
                            bin_width=1.0)
+
+
+# (B, Sq, Skv, H, Hkv, dh, causal, window): the five cases of the
+# reference's kernel tests, other head dims, and a prefill longer than a
+# few tiles with Skv != Sq
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 32, True, None),
+    (1, 96, 96, 4, 4, 16, True, None),       # ragged, MHA
+    (2, 64, 64, 8, 2, 32, False, None),      # non-causal
+    (1, 128, 128, 4, 2, 32, True, 48),       # sliding window
+    (1, 64, 64, 8, 1, 16, True, None),       # MQA
+    (2, 77, 77, 4, 2, 64, True, None),
+    (1, 150, 150, 4, 2, 112, True, 40),
+    (1, 70, 70, 2, 1, 256, True, None),
+    (1, 300, 333, 12, 2, 128, True, None),
+    (2, 50, 90, 6, 3, 128, False, 30),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,dh,causal,window", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(dev, B, Sq, Skv, H, Hkv, dh,
+                                              causal, window, dtype):
+    rng = np.random.default_rng(Sq * 7 + dh)
+    q, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev).to(dtype)
+               for shape in ((B, Sq, H, dh), (B, Skv, Hkv, dh),
+                             (B, Skv, Hkv, dh)))
+    kw = dict(causal=causal, window=window)
+    ops.reset_launch_counts()
+    o, lse = ops.flash_attention_fwd_op(q, k, v, **kw)
+    wo, wlse = ops.flash_attention_fwd_op(q, k, v, use_ref=True, **kw)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attn_fwd"] == 1
+    assert o.dtype == dtype and lse.shape == (B * Hkv, H // Hkv, Sq)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(o.float(), wo.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, wlse, rtol=tol, atol=tol)
+
+
+def test_flash_attention_kernel_refuses(dev):
+    q = torch.zeros((1, 8, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim 48"):
+        flash_attention_fwd_cuda(q, q[:, :, :1], q[:, :, :1])
+    q = torch.zeros((1, 8, 2, 32), device=dev, requires_grad=True)
+    kv = torch.zeros((1, 8, 1, 32), device=dev)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.flash_attention_op(q, kv, kv)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_fwd_cuda(q.detach().half(), kv.half(), kv.half())

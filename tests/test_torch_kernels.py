@@ -233,8 +233,12 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing(rng):
                            tpdt_init=2.0, use_ref=True),
         ref.tpdt_select_ref(counts, sums, N, total, centers, max_tpdt=1.0,
                             tpdt_init=2.0))
+    q, kv = torch.randn((1, 8, 2, 16)), torch.randn((1, 8, 1, 16))
+    for x, y in zip(ops.flash_attention_fwd_op(q, kv, kv),
+                    ref.flash_attention_fwd_ref(q, kv, kv)):
+        assert torch.equal(x, y)
     assert ops.launch_counts() == {"port_energy": 0, "hist_update": 0,
-                                   "tpdt_select": 0}
+                                   "tpdt_select": 0, "flash_attn_fwd": 0}
 
 
 def test_cuda_wrappers_refuse_host_tensors(rng):
